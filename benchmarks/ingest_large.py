@@ -1,9 +1,8 @@
-"""Pod-shape streaming exercise on one chip (VERDICT r2 item 9 /
-BASELINE.md config 5 scaled down): a multi-GB gzipped paired-end run
+"""Streaming exercise on one device (BASELINE.md config 5 scaled down): a multi-GB gzipped paired-end run
 through the full ingest path — native C++ reader (gz inflate + 2-bit
 dense packing + (k-1) seams) -> prefetch thread -> device counting —
-with input-pipeline utilization printed, so the "chips stay busy" claim
-has a measured artifact before real hardware shows up.
+with input-pipeline utilization printed, so the claim that the device
+stays busy has a measured artifact.
 
 Generates the dataset on first use (default ~2 x 1.1GB gz of 150bp
 paired reads from a 40Mbp genome at ~30x) under /tmp and reuses it.
@@ -108,7 +107,7 @@ def main() -> None:
     # full pipeline: reader + prefetch + device counting overlapped
     sc = counting.CodeStreamingCounter(
         K, canonical=True, initial_capacity=1 << 26,
-        max_capacity=1 << 28, flush_windows=1 << 26)
+        max_capacity=1 << 28)
     t0 = time.perf_counter()
     for batch in prefetch(native.stream_code_batches(paths, K,
                                                      threads=threads),

@@ -1,13 +1,12 @@
-"""Stage decomposition of the sort-merge join + comp passes on chip.
+"""Stage decomposition of the sort-merge join + comp passes on the device.
 
 Times, dispatch-subtracted where it matters:
   - join stages: query sort / merge / run-max scan / unpermute sort
   - comp pass1 ingredient ablation: full pass vs no-lookup vs
-    lookups-only, to locate the 4.1M-entries/s surprise from
-    analysis_bench (suspects: emulated-f64 scaleCounter, uint64
-    scatter-add spectra/matrix).
+    lookups-only (suspects: f64 scaleCounter, uint64 scatter-add
+    spectra/matrix).
 
-One TPU process at a time!  Prints one JSON line.
+Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -28,8 +27,7 @@ import jax.numpy as jnp  # noqa: E402
 from kat_tpu.core import counting, comp_engine, tables  # noqa: E402
 from kat_tpu.core.kmers import SENTINEL  # noqa: E402
 from kat_tpu.ops.join import _run_max, counts_join  # noqa: E402
-from kat_tpu.ops.merge_kernel import merge_sorted_kernel  # noqa: E402
-from kat_tpu.ops.sort_kernel import sort_planes_padded  # noqa: E402
+from kat_tpu.ops.merge import merge_sorted  # noqa: E402
 
 
 def timed(fn, *args, reps=3):
@@ -72,20 +70,20 @@ def main():
     res["dispatch_ms"] = round(timed(noop, qhi) * 1e3, 1)
 
     # full join
-    full = functools.partial(counts_join, use_kernel=True, interpret=False)
+    full = counts_join
     res["join_full_ms"] = round(
         timed(lambda: full((thi, tlo), tc, (qhi, qlo)), reps=3) * 1e3, 1)
 
-    # stage 1: query sort (3 planes, 3 keys)
+    # stage 1: query sort (3 planes, 2 keys)
     idx = jnp.arange(1, m + 1, dtype=jnp.uint32)
-    s1 = jax.jit(lambda a, b, i: sort_planes_padded((a, b, i), 3))
+    s1 = jax.jit(lambda a, b, i: jax.lax.sort((a, b, i), num_keys=2))
     res["join_qsort_ms"] = round(timed(s1, qhi, qlo, idx) * 1e3, 1)
 
     # stage 2: merge (4 planes)
     sq = s1(qhi, qlo, idx)
     tidx = jnp.full((n_t,), SENTINEL, jnp.uint32)
     zc = jnp.zeros((m,), jnp.uint32)
-    s2 = jax.jit(lambda: merge_sorted_kernel(
+    s2 = jax.jit(lambda: merge_sorted(
         (thi, tlo), (tc, tidx), (sq[0], sq[1]), (zc, sq[2])))
     res["join_merge_ms"] = round(timed(s2) * 1e3, 1)
 
@@ -97,7 +95,7 @@ def main():
 
     # stage 4: unpermute sort (2 planes, 1 key)
     c = s3()
-    s4 = jax.jit(lambda: sort_planes_padded((mp[1], c), 1))
+    s4 = jax.jit(lambda: jax.lax.sort((mp[1], c), num_keys=1))
     res["join_unpermute_ms"] = round(timed(s4) * 1e3, 1)
 
     # ---- comp pass ablation (tables at 2^23 like analysis_bench) ------

@@ -1,22 +1,21 @@
-"""Sharded-counter overhead on ONE real chip (VERDICT r2 item 1 "done"
-criterion: sharded 1-device TPU throughput within ~15% of the
-single-table path).
+"""Sharded-counter overhead on ONE device: the 1-device-mesh
+ShardedCounter's throughput against the single-table path.
 
 Runs the same workload as bench.py through (a) the single-table
 CodeStreamingCounter and (b) a 1-device-mesh ShardedCounter (whose flush
-adds dest hashing, bucket slicing, a trivial all_to_all and the run
-merge), and prints one JSON line with both rates and the ratio.
+adds dest hashing, bucket slicing and a trivial all_to_all), and prints one JSON line with both rates and the ratio.
 
 Usage: python benchmarks/sharded_one_chip.py [n_batches]
 """
 
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main() -> None:
@@ -42,7 +41,7 @@ def main() -> None:
         sc = counting.CodeStreamingCounter(
             k, canonical=True, initial_capacity=1 << 24,
             max_capacity=1 << 26, flush_batches=flush_batches)
-        for i in range(2 * flush_batches + 1):  # warm incl. consolidation
+        for i in range(2 * flush_batches + 1):  # warm every flush shape
             sc.add_codes(batches[i % 4])
         sc._flush()
         _ = sc.device_sync()

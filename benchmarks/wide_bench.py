@@ -1,4 +1,4 @@
-"""Steady-state wide-key counting throughput on chip (k=33: the 4-word
+"""Steady-state wide-key counting throughput on the device (k=33: the 4-word
 key path, the narrowest 'wide' configuration and the one BASELINE config
 5's k=31 neighbors).  Mirrors bench.py's device-side methodology —
 pre-uploaded batches, warm flushes before the measurement window, scalar

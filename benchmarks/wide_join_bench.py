@@ -1,4 +1,4 @@
-"""Wide-key (k=33, 4-word) sort-merge-join lookup throughput on chip —
+"""Wide-key (k=33, 4-word) sort-merge-join lookup throughput on the device —
 the analysis-phase engine for k>31 tools, measured the same way as the
 narrow number in benchmarks/analysis_bench.py, with bit-identity
 attestation against the wide binary search.  Prints one JSON line.
@@ -18,7 +18,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from kat_tpu.core import counting, tables, wide  # noqa: E402
+from kat_tpu.core import tables, wide  # noqa: E402
 from kat_tpu.ops.join import counts_join  # noqa: E402
 
 SMALL = bool(os.environ.get("KAT_TPU_ANALYSIS_SMALL"))
@@ -52,9 +52,6 @@ def main() -> None:
     m = min(1 << 12 if SMALL else 1 << 22, q[0].size)
     qw = tuple(w.reshape(-1)[:m] for w in q)
 
-    use_kernel = counting.kernels_enabled()
-    interp = counting._kernel_interpret()
-
     def timed(fn, reps=3):
         out = fn()
         _ = np.asarray(out.reshape(-1)[:8])
@@ -66,9 +63,7 @@ def main() -> None:
             best = min(best, time.perf_counter() - t0)
         return out, best
 
-    join_out, dt = timed(lambda: counts_join(
-        tab.words, tab.counts, qw, use_kernel=use_kernel,
-        interpret=interp))
+    join_out, dt = timed(lambda: counts_join(tab.words, tab.counts, qw))
     res["wide_join_per_s"] = round(m / dt, 1)
     res["wide_join_ns_per_query"] = round(dt / m * 1e9, 2)
 

@@ -20,6 +20,49 @@ from scipy.signal import argrelextrema
 from .peak import Peak, create_model
 
 
+def _number(s: str):
+    """int or float value of a table cell, None if it is not a number."""
+    for conv in (int, float):
+        try:
+            return conv(s)
+        except ValueError:
+            pass
+    return None
+
+
+def format_table(rows, header) -> str:
+    """Plain-text table laid out as the reference's `tabulate.tabulate(rows,
+    header)` prints it (scripts/kat/spectra.py print_peaks): numeric
+    columns re-formatted with "g", decimal-aligned and right-justified,
+    text columns left-justified, a dashed rule under the header, two
+    spaces between columns and no trailing blanks."""
+    cols = []
+    for j, head in enumerate(header):
+        cells = [r[j] for r in rows]
+        vals = [_number(c) for c in cells]
+        if all(v is not None for v in vals):
+            if all(isinstance(v, int) for v in vals):
+                cells = [str(v) for v in vals]
+            else:
+                cells = [format(float(v), "g") for v in vals]
+            after = [len(c) - c.rfind(".") - 1 if "." in c else
+                     (len(c) - c.lower().rfind("e") - 1 if "e" in c.lower()
+                      else -1) for c in cells]
+            cells = [c + " " * (max(after) - a) for c, a in zip(cells, after)]
+            width = max([len(head) + 2] + [len(c) for c in cells])
+            cols.append(([c.rjust(width) for c in cells], head.rjust(width),
+                         width))
+        else:
+            width = max([len(head) + 2] + [len(c) for c in cells])
+            cols.append(([c.ljust(width) for c in cells], head.ljust(width),
+                         width))
+    lines = ["  ".join(c[1] for c in cols).rstrip(),
+             "  ".join("-" * c[2] for c in cols)]
+    lines += ["  ".join(c[0][i] for c in cols).rstrip()
+              for i in range(len(rows))]
+    return "\n".join(lines)
+
+
 def smooth(x: np.ndarray, window_len: int = 3) -> np.ndarray:
     """Moving average with edge reflection (spectra.py:16-31)."""
     x = np.asarray(x)
@@ -138,11 +181,10 @@ class Spectra:
 
     def print_peaks(self) -> None:
         if self.peaks:
-            import tabulate
             header = ["Index"] + Peak.header()
             rows = [[str(i)] + p.to_row()
                     for i, p in enumerate(self.peaks, start=1)]
-            print(tabulate.tabulate(rows, header))
+            print(format_table(rows, header))
         else:
             print("No peaks detected")
 

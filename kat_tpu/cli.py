@@ -472,7 +472,7 @@ def main(argv: list[str] | None = None) -> int:
         pass  # stderr has no fileno (e.g. captured by a test harness)
     parser = argparse.ArgumentParser(
         prog="kat", add_help=False,
-        description="The K-mer Analysis Toolkit (KAT), TPU-native edition. "
+        description="The K-mer Analysis Toolkit (KAT), JAX edition. "
                     "The first argument should be the tool/mode you wish to "
                     "use: hist, gcp, comp, sect, cold, filter, plot.")
     parser.add_argument("--version", action="version",

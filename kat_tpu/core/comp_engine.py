@@ -93,22 +93,20 @@ def pass1(t1, t2, t3, k: int, d1_bins: int, d2_bins: int, dm_size: int,
         # Default config: with a unit scale and d1_bins == dm_size,
         # _scale_clamp and spectrum_bins are the SAME integer function,
         # so the spectrum bin IS the matrix row — the spectra are the
-        # high-part (monotone) coarsening of the flat matrix key, and
-        # ONE sort carries spectrum1, shared_spectrum1 AND main_mx
-        # (stats.monotone_packed_sums, nested-coarsening requests).
+        # high-part coarsening of the flat matrix key, and one packed key
+        # yields spectrum1, shared_spectrum1 AND main_mx.
         packed = s1 * d2_bins + s2
         spectrum1, shared_spectrum1, mx = monotone_packed_sums(
-            packed, d1_bins * d2_bins,
+            packed,
             ((d2_bins, dm_size, 0), (d2_bins, dm_size, 1),
              (1, d1_bins * d2_bins, 0)), (w, ws))
         main_mx = mx.reshape(d1_bins, d2_bins)
     else:
-        # spectrum1 and shared_spectrum1 bin the SAME h1 counts — one
-        # sort carries both weight planes (stats.binned_sums)
+        # spectrum1 and shared_spectrum1 bin the SAME h1 counts
         spectrum1, shared_spectrum1 = binned_sums(
             dm_size, spectrum_bins(h1, dm_size), (w, ws))
         # s1/s2 are clamped in range, so the 2D count collapses to one
-        # flat binned sum (sort+reduce on TPU, scatter elsewhere)
+        # flat binned sum
         main_mx = binned_sum(d1_bins * d2_bins, s1 * d2_bins + s2,
                              w).reshape(d1_bins, d2_bins)
     if h2_pre is not None:
@@ -116,7 +114,7 @@ def pass1(t1, t2, t3, k: int, d1_bins: int, d2_bins: int, dm_size: int,
         # symmetric (a key is shared iff stored in BOTH tables with a
         # positive count), so shared_spectrum2 — binned by h2, which is
         # t2's own count for the key — is computed on pass2's stream
-        # instead, where it rides pass2's one fused sort for free.
+        # instead, where it rides pass2's packed binning.
         # Callers sum the two contributions; this one is all zero.
         shared_spectrum2 = jnp.zeros((dm_size,), jnp.uint64)
     else:
@@ -127,9 +125,7 @@ def pass1(t1, t2, t3, k: int, d1_bins: int, d2_bins: int, dm_size: int,
         ends_w = w * (s2 == s3)
         mixed_w = w * ((s2 != s3) & (h3 > 0))
         middle_w = w * ((s2 != s3) & (h3 == 0))
-        # all three matrices bin the SAME (s1, s3) key — one flat
-        # binned_sums sort carries the three weight planes (was three
-        # full-length scatters)
+        # all three matrices bin the SAME flat (s1, s3) key
         ends_mx, mixed_mx, middle_mx = (
             m.reshape(d1_bins, d2_bins) for m in binned_sums(
                 d1_bins * d2_bins, s1 * d2_bins + s3,
@@ -178,17 +174,13 @@ def pass2(t2, t1, k: int, d2_bins: int, dm_size: int, d2_scale: float,
     s2 = _scale_clamp(h2, d2_scale, d2_bins)
     spec2 = spectrum_bins(h2, dm_size)
     if dm_size * d2_bins < 2**31 and d2_scale > 0:
-        # spec2 and s2 are both monotone step functions of h2, so the
-        # packed pair takes at most dm_size + d2_bins distinct values —
-        # spectrum2, row0 (and shared_spectrum2) share ONE sort with a
-        # tiny reduce capacity instead of a sort plus a full-length
-        # scatter each (stats.monotone_packed_sums).
+        # spectrum2, row0 (and shared_spectrum2) all derive from the
+        # packed (spectrum bin, column) key of h2.
         packed = spec2 * d2_bins + s2
         masks = (w, only) + ((shared2,) if want_shared2 else ())
         reqs = ((d2_bins, dm_size, 0), (1, d2_bins, 1)) + (
             ((d2_bins, dm_size, 2),) if want_shared2 else ())
-        outs = monotone_packed_sums(packed, dm_size * d2_bins, reqs, masks,
-                                    runs_cap=dm_size + d2_bins + 8)
+        outs = monotone_packed_sums(packed, reqs, masks)
         spectrum2, row0 = outs[0], outs[1]
         shared_spectrum2 = (outs[2] if want_shared2
                             else jnp.zeros((dm_size,), jnp.uint64))

@@ -1,10 +1,10 @@
 """2-bit k-mer encoding and vectorized sliding-window extraction.
 
-TPU-native analogue of jellyfish's `mer_dna` + `mer_iterator` (reference:
+Data-parallel analogue of jellyfish's `mer_dna` + `mer_iterator` (reference:
 deps/jellyfish-2.2.0/include/jellyfish/mer_dna.hpp:330-437 and
 mer_iterator.hpp:61-89).  A k-mer (k <= 31) is a 64-bit packed integer,
 represented as a pair of uint32 arrays ``(hi, lo)`` so every op stays in
-native 32-bit TPU lanes (no x64 emulation, Pallas-compatible).
+native 32-bit lanes.
 
 Packing convention (identical to jellyfish so .jf files round-trip):
   base codes A=0, C=1, G=2, T=3; the FIRST character of the k-mer occupies
@@ -172,7 +172,7 @@ def words_for_k(k: int) -> int:
     """2 for the packed-u64 fast path; 3 for k in (31, 47]; 2*(k//32+1)
     words beyond (4/6/8/10/... for k <= 63/95/127/159/...).
 
-    The 3-word path (round-5) exists because most above-31 k values sit
+    The 3-word path exists because most above-31 k values sit
     in (32, 47] and a 4th sort plane costs ~25% extra compare-exchange
     work for bits that are always zero; 2k <= 94 < 96 keeps the sentinel
     unambiguous.  Beyond 47 the word count always leaves at least one

@@ -1,11 +1,9 @@
-"""Minimizer-bucketed key transform for the chunked counting flush.
+"""Minimizer-bucketed key transform for a chunked counting flush.
 
-The sort kernel's roofline (docs/PERFORMANCE.md) showed the flush wall is
-the bitonic phase count: a full 2^26 sort runs 351 compare-exchange
-rounds.  If the fresh stream arrives PRE-GROUPED into buckets that are a
-prefix of the sort order, each aligned chunk sorts independently with
-phases capped at the chunk size (136 rounds at 2^16) in ONE HBM pass —
-the KMC2/minimizer super-k-mer idea (PAPERS.md) recast for fixed shapes:
+If the fresh stream arrives PRE-GROUPED into buckets that are a prefix of
+the sort order, each aligned chunk can sort independently, with work
+capped at the chunk size instead of the whole flush — the KMC2/minimizer
+super-k-mer idea (PAPERS.md) recast for fixed shapes:
 the variable-length grouping happens on the host (native/fastxio.cpp
 router) where shapes are free, and the device only ever sees fixed
 [chunks, slots] geometry.
@@ -41,10 +39,13 @@ supermer was routed to, and bucket order IS key' order, so concatenated
 sorted chunks form a globally sorted stream.
 
 Bit budget: 31 + 2(k-m) <= 64 requires k <= m + 16; with m=13 the path
-covers k in (13, 29].  Other k fall back to the classic flush.
+covers k in (13, 29].
+
+No counter consumes the transform at present: it and the host router are
+kept for minimizer-partitioned counting passes (ROADMAP R2(b)).
 
 Reference role: replaces nothing in KAT/jellyfish (the reference sorts
-nothing); this is the TPU-side analogue of KMC2's signature-partitioned
+nothing); this is the device-side analogue of KMC2's signature-partitioned
 bins [Deorowicz et al., PAPERS.md].
 """
 
@@ -345,9 +346,7 @@ def expand_records(rhi, rlo, k: int, m: int = M_DEFAULT,
                    canonical: bool = True):
     """Supermer records -> per-window transformed keys.
 
-    Cost structure (round-5 rewrite after the chip profile showed the
-    naive version at 6x the classic extract): the record's reverse
-    complement is computed ONCE (_rc_field), so every window's rc and
+    Cost structure: the record's reverse complement is computed ONCE (_rc_field), so every window's rc and
     every minimizer candidate's rc strand are static extracts; candidate
     (value, pos, strand) triples pack into ONE u32 whose min is the
     leftmost minimizer (26-bit value | 5-bit pos | strand — value-major,

@@ -8,7 +8,6 @@ with single scatter-add passes; under a mesh they run per-shard and merge with
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -19,55 +18,20 @@ from .kmers import gc_count
 
 def mask_bincount(shape, idx, mask01, **scatter_kw) -> jax.Array:
     """Scatter-add of a 0/1 weight mask into a uint64 accumulator —
-    accumulated in uint32 and widened afterwards.  TPU uint64 scatter-adds
-    run 6-13x slower than uint32 (64-bit integers are emulated, chip
-    measurement in docs/PERFORMANCE.md); since every element contributes
-    at most 1 and table capacities are < 2^32, uint32 accumulation is
-    exact.  idx may be an index array or a tuple (2D bins)."""
+    accumulated in uint32 and widened afterwards.  Since every element
+    contributes at most 1 and table capacities are < 2^32, uint32
+    accumulation is exact.  idx may be an index array or a tuple (2D
+    bins)."""
     acc = jnp.zeros(shape, jnp.uint32).at[idx].add(
         mask01.astype(jnp.uint32), **scatter_kw)
     return acc.astype(jnp.uint64)
 
 
-# Minimum elements before binned_sum routes through sort+reduce instead
-# of a scatter: even the u32 scatter costs ~11 ns/elt on TPU (random
-# HBM writes) vs ~2.5-3 ns for the Pallas sort + streaming reduce.
-BINNED_SORT_MIN = 1 << 20
-
-
 def binned_sums(total_bins: int, bins: jax.Array, masks) -> tuple:
     """Sum one or more 0/1 masks into `total_bins` FLAT in-range bins,
-    returned as uint64 arrays (exact: see mask_bincount).
-
-    On kernel-capable backends with large inputs this is ONE Pallas sort
-    of (bin, *masks) — the masks ride as payload, so several spectra
-    over the same bins (comp pass1's spectrum1/shared_spectrum1) share
-    the expensive sort — followed by one streaming reduce-by-key + tiny
-    scatter per mask; ~4x cheaper than even the uint32 scatter (chip:
-    96ms vs ~25ms at 2^23).  `bins` MUST already be clamped in range
-    (no drop semantics here)."""
-    from .counting import _kernel_interpret, kernels_enabled
-
-    n = bins.shape[0]
-    if not (kernels_enabled() and n >= BINNED_SORT_MIN):
-        return tuple(mask_bincount((total_bins,), bins, m) for m in masks)
-    from ..ops.reduce_kernel import reduce_compact_sorted
-    from ..ops.sort_kernel import sort_planes_padded
-
-    interp = _kernel_interpret()
-    planes = sort_planes_padded(
-        (bins.astype(jnp.uint32),
-         *[m.astype(jnp.uint32) for m in masks]), 1, interpret=interp)
-    outs = []
-    for sw in planes[1:]:
-        ub, us, _nu = reduce_compact_sorted((planes[0],), sw, total_bins,
-                                            interpret=interp)
-        # sentinel padding rows come back as SENTINEL keys -> int32 -1
-        # -> dropped; real bins land with their run sums
-        acc = jnp.zeros((total_bins,), jnp.uint32).at[
-            ub.astype(jnp.int32)].add(us, mode="drop")
-        outs.append(acc.astype(jnp.uint64))
-    return tuple(outs)
+    returned as uint64 arrays (exact: see mask_bincount).  `bins` MUST
+    already be clamped in range (no drop semantics here)."""
+    return tuple(mask_bincount((total_bins,), bins, m) for m in masks)
 
 
 def binned_sum(total_bins: int, bins: jax.Array,
@@ -75,105 +39,17 @@ def binned_sum(total_bins: int, bins: jax.Array,
     return binned_sums(total_bins, bins, (mask01,))[0]
 
 
-def monotone_packed_sums(packed: jax.Array, packed_span: int,
-                         requests, masks, runs_cap: int = 0) -> tuple:
-    """Several binned 0/1-mask sums that share ONE sort because every
-    requested bin index derives from the same packed key:
-    ``bin = (packed // div) % mod``.
+def monotone_packed_sums(packed: jax.Array, requests, masks) -> tuple:
+    """Several binned 0/1-mask sums whose bin indices all derive from one
+    packed key: ``bin = (packed // div) % mod``.
 
-    Two request shapes, distinguished per request by ``div * mod >=
-    packed_span``:
-
-    - **Nested coarsening** (div * mod >= packed_span): the derived bin is
-      a monotone function of the packed key (it is a high-part division),
-      so the reduce runs keyed on the DERIVED bin directly with capacity
-      mod — e.g. comp pass 1 in the default config, where the spectrum
-      bin equals the matrix row, making the spectrum the high part of the
-      flat matrix key.
-    - **Cross coarsening** (div * mod < packed_span): the derived bin can
-      repeat across packed runs, so the reduce stays keyed on the packed
-      key and the epilogue accumulates runs into bins.  The caller must
-      then bound the number of DISTINCT packed values by `runs_cap` — the
-      canonical use is several binnings that are all monotone step
-      functions of one underlying value (comp pass 2: the spectrum bin
-      and the scaled matrix column are both monotone in the count h2, so
-      distinct (spectrum_bin, column) pairs never exceed
-      #steps(spectrum) + #steps(column) + 1 <= dm_size + d2_bins).
-      NOTE: runs_cap is an ANALYTICAL claim by the caller, not a
-      structural guarantee like the nested path's mod.  If it
-      underestimates the true number of distinct packed values, runs are
-      silently truncated and the sums are wrong with no signal.  Set
-      KAT_TPU_CHECK=1 to assert n_unique <= runs_cap at runtime.
-
-    requests: tuple of (div, mod, mask_index).  Returns one uint64 (mod,)
-    array per request.  `packed` must lie in [0, packed_span) with
-    packed_span <= 2**32 - 1 (the top value is the sort sentinel).
-    """
-    from .counting import _kernel_interpret, kernels_enabled
-
-    n = packed.shape[0]
-    if not (kernels_enabled() and n >= BINNED_SORT_MIN):
-        return tuple(
-            mask_bincount((mod,), (packed // div) % mod, masks[mi])
-            for div, mod, mi in requests)
-    from ..ops.reduce_kernel import reduce_compact_sorted
-    from ..ops.sort_kernel import sort_planes_padded
-
-    interp = _kernel_interpret()
-    used = sorted({mi for _, _, mi in requests})
-    planes = sort_planes_padded(
-        (packed.astype(jnp.uint32),
-         *[masks[mi].astype(jnp.uint32) for mi in used]),
-        1, interpret=interp)
-    reduced = {}
-    outs = []
-    for div, mod, mi in requests:
-        nested = div * mod >= packed_span
-        if not nested and runs_cap <= 0:
-            raise ValueError("cross-coarsening request needs runs_cap")
-        form = (div if nested else None, mi)
-        if form not in reduced:
-            sw = planes[1 + used.index(mi)]
-            if nested:
-                # packed // div is monotone and < mod, so the reduce can
-                # key on it directly with the tight per-bin capacity.
-                # The sort's input padding rows (key SENTINEL=0xFFFFFFFF)
-                # become SENTINEL // div here: still sorts last (packed <
-                # packed_span <= SENTINEL so real keys divide smaller),
-                # still >= mod (div * mod < 2**31 bounds guarantee it),
-                # carries zero weight, and the +2 cap margin absorbs its
-                # run — mode='drop' below discards it.  Stated here so the
-                # deviation from reduce_compact_sorted's all-SENTINEL
-                # padding contract is visible.
-                key = planes[0] // jnp.uint32(div)
-                cap = mod + 2
-            else:
-                key = planes[0]
-                cap = runs_cap
-            ub, us, nu = reduce_compact_sorted((key,), sw, cap,
-                                               interpret=interp)
-            if (not nested and os.environ.get("KAT_TPU_CHECK") == "1"
-                    and not isinstance(nu, jax.core.Tracer)):
-                # runs_cap is an analytical bound — see docstring hazard
-                if int(nu) > cap:
-                    raise AssertionError(
-                        f"monotone_packed_sums: {int(nu)} distinct packed "
-                        f"runs exceed runs_cap={cap}; sums are truncated")
-            reduced[form] = (ub, us)
-        ub, us = reduced[form]
-        if nested:
-            # reduce output pads with SENTINEL keys -> int32 -1 -> dropped
-            idx = ub.astype(jnp.int32)
-        else:
-            # A derived bin may repeat across packed runs — the adds
-            # accumulate them exactly.  Sentinel padding rows derive an
-            # in-range bin but carry zero sums, so they contribute
-            # nothing.
-            idx = ((ub // jnp.uint32(div)) % jnp.uint32(mod)).astype(
-                jnp.int32)
-        acc = jnp.zeros((mod,), jnp.uint32).at[idx].add(us, mode="drop")
-        outs.append(acc.astype(jnp.uint64))
-    return tuple(outs)
+    comp packs (spectrum bin, matrix column) pairs into one key so that
+    spectra, matrices and row 0 come out of a single call.  requests:
+    tuple of (div, mod, mask_index).  Returns one uint64 (mod,) array per
+    request."""
+    return tuple(
+        mask_bincount((mod,), (packed // div) % mod, masks[mi])
+        for div, mod, mi in requests)
 
 
 @functools.partial(jax.jit, static_argnames=("base", "ceil", "inc",
@@ -212,7 +88,7 @@ def gcp_matrix(table: CountTable, mer_len: int, cvg_bins: int,
     cvg_pos = jnp.minimum(cvg_pos, cvg_bins).astype(jnp.int32)
     # gc (<= mer_len by construction, incl. sentinel rows whose weight
     # is 0) and cvg_pos (clamped) are always in range, so the 2D count
-    # collapses to one flat binned sum (sort+reduce on kernel backends)
+    # collapses to one flat binned sum
     flat = gc * (cvg_bins + 1) + cvg_pos
     return binned_sums((mer_len + 1) * (cvg_bins + 1), flat,
                        (table.counts > 0,))[0].reshape(
@@ -231,7 +107,7 @@ def spectrum(counts: jax.Array, weights: jax.Array, nb_bins: int) -> jax.Array:
 
 def spectrum_bins(counts: jax.Array, nb_bins: int) -> jax.Array:
     """The spectrum's bin index per entry (factored so several spectra
-    over the same counts can share one binned_sums sort)."""
+    over the same counts can share one binned_sums call)."""
     c = counts.astype(jnp.int64)
     return jnp.where(c <= 0, 0,
                      jnp.where(c >= nb_bins, nb_bins - 1,

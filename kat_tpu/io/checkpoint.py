@@ -1,7 +1,7 @@
 """Sharded count-table checkpoints.
 
 In the reference the jellyfish .jf dump IS the checkpoint (SURVEY §5:
-`--dump_hash` + LOAD mode re-consumption).  The TPU build keeps that format
+`--dump_hash` + LOAD mode re-consumption).  This build keeps that format
 for interchange (io/jellyfish.py) and adds a native sharded checkpoint for
 large tables: one .npz per shard plus a JSON manifest carrying k, the
 canonical flag, the shard count and the shard-hash identifier, so a resumed

@@ -4,8 +4,8 @@ The native reader is the framework's equivalent of jellyfish's C++
 mer_overlap_sequence_parser + stream_manager hot path (SURVEY §2.2): it
 parses FASTA/FASTQ(.gz) and emits densely packed, already-2-bit-encoded
 [rows, row_len] uint8 batches with record separators and (k-1) seams, ready
-for device upload.  Built on demand with g++ (cached in ~/.cache/kat_tpu);
-callers fall back to the pure-Python path when unavailable.
+for device upload.  Built on demand with g++ (cached in `.native_build/`
+in the checkout, or KAT_TPU_NATIVE_CACHE); callers fall back to the pure-Python path when unavailable.
 
 Parallelism (the reference drains one stream with N cooperating consumer
 threads, deps/jellyfish-2.2.0/include/jellyfish/cooperative_pool2.hpp:28-50;
@@ -61,7 +61,8 @@ def _host_key() -> str:
 def _build_lib() -> str | None:
     cache = os.environ.get(
         "KAT_TPU_NATIVE_CACHE",
-        os.path.expanduser(f"~/.cache/kat_tpu/native-{_host_key()}"))
+        os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(_SRC)))), ".native_build", _host_key()))
     os.makedirs(cache, exist_ok=True)
     so = os.path.join(cache, "libfastxio.so")
     if (os.path.exists(so)
@@ -284,8 +285,9 @@ def stream_code_batches(paths: list[str], k: int,
 
 
 class SupermerRouter:
-    """Native minimizer supermer router (the host half of the bucketed
-    counting flush — see core/minimizer.py and native/fastxio.cpp).
+    """Native minimizer supermer router (the host half of a
+    minimizer-bucketed counting flush — see core/minimizer.py and
+    native/fastxio.cpp; no counter consumes it at present).
 
     Streams one FASTX(.gz) file and yields per-flush chunk layouts:
     (records u64 [n_chunks, rec_per_chunk], hot groups [n, 2]

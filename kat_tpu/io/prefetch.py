@@ -2,9 +2,9 @@
 
 The reference overlaps parsing with counting via its cooperative MPMC pool
 (deps/jellyfish-2.2.0/include/jellyfish/cooperative_pool2.hpp:28-50 —
-consumers become producers).  The TPU analogue is simpler: device compute
+consumers become producers).  The analogue here is simpler: device compute
 is asynchronous anyway, so ONE background thread running the native reader
-a few batches ahead keeps the chip fed while the host parses/decompresses.
+a few batches ahead keeps the device fed while the host parses/decompresses.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 The reference embeds jellyfish 2.2.0, whose own sub-commands
 (deps/jellyfish-2.2.0/sub_commands/{count,histo,dump,query,merge,stats}
 _main.cc) are built alongside KAT.  This module provides the same six
-utilities on top of the TPU engine and the bit-compatible .jf codec:
+utilities on top of the device engine and the bit-compatible .jf codec:
 
     python -m kat_tpu.jf_cli count -m 27 -o out.jf reads.fastq
     python -m kat_tpu.jf_cli histo out.jf
@@ -159,7 +159,7 @@ def cmd_stats(args) -> int:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="kat_tpu.jf_cli",
-        description="Jellyfish-compatible .jf utilities on the TPU engine.")
+        description="Jellyfish-compatible .jf utilities on the device engine.")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     c = sub.add_parser("count")

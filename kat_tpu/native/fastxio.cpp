@@ -1,6 +1,6 @@
 // Native FASTA/FASTQ/gz chunk reader + 2-bit encoder.
 //
-// This is the TPU framework's equivalent of jellyfish's
+// This is the framework's equivalent of jellyfish's
 // mer_overlap_sequence_parser (reference deps/jellyfish-2.2.0/include/
 // jellyfish/mer_overlap_sequence_parser.hpp) + stream_manager
 // (stream_manager.hpp) + cooperative_pool2's many-consumers-one-stream

@@ -1,8 +1,3 @@
-"""Pallas TPU kernels for the counting hot path.
-
-These replace the XLA primitives whose measured cost floors the counting
-pipeline (docs/PERFORMANCE.md): the segmented Hillis-Steele scan and the
-compaction sort of core/counting._unique_reduce become one streaming
-reduce-by-key kernel (ops/reduce_kernel.py) that reads the sorted stream
-once and writes only the compacted unique table.
-"""
+"""Streaming table operations shared by the analysis phase: the bitonic
+merge of two sorted key streams (ops/merge.py) and the sort-merge-join
+lookup engine built on it (ops/join.py)."""

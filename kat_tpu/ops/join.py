@@ -1,33 +1,28 @@
-"""Sort-merge-join point lookups: the bulk-query engine for the analysis
-phase (sect / cold / comp probes / filter-seq profiles).
+"""Sort-merge-join point lookups: an alternative bulk-query engine for the
+analysis phase (sect / cold / comp probes / filter-seq profiles).
 
 The reference serves its second hot loop — random point probes into a
 shared hash (src/comp.cc:401-404,447, src/sect.cc:536,
 src/filter_sequence.cc:363) — with a prefetched O(1) probe
 (deps/jellyfish-2.2.0/include/jellyfish/large_hash_array.hpp:404-476
-`get_key_id`).  The TPU has no cheap random access: a binary search is
-~log2(cap) rounds x 2 random gathers per query (~11 ns/elt per gather on
-v5e, docs/PERFORMANCE.md), i.e. hundreds of ns per query.  This module
-replaces it with streaming passes only:
+`get_key_id`).  The default here is a vectorized binary search
+(core/counting.lookup): log2(cap) rounds of random gathers per query.
+This module answers the same queries with streaming passes only:
 
-1. sort the queries by key (Pallas windowed bitonic, original position
-   riding as an extra tiebreak key word so sentinel-key queries are never
-   confused with the sort's own padding),
-2. bitonic-MERGE them with the resident sorted table (ops/merge_kernel),
+1. sort the queries by key (original position riding as a payload),
+2. bitonic-MERGE them with the resident sorted table (ops/merge.py),
    table rows carrying (count, idx=SENTINEL), queries (0, idx),
 3. propagate each equal-key run's unique table count to every run member
    with a doubling windowed max (counts are >=1 for real table rows, 0
    everywhere else, and table keys are unique — so the run max IS the
    answer; no stability assumption on the merge is needed),
-4. un-permute with ONE cheap 2-plane sort by idx and slice the query rows
-   back out (merge padding sorts to the front with idx 0, table rows to
-   the back with idx SENTINEL).
+4. un-permute with ONE 2-plane sort by idx and slice the query rows back
+   out (merge padding sorts to the front with idx 0, table rows to the
+   back with idx SENTINEL).
 
-Every step is a sort/merge/elementwise pass — no scatters or random
-gathers anywhere (architecture invariant, docs/PERFORMANCE.md).  Cost is
-~O((n_table + m) log) streaming work instead of m random-probe chains:
-tens of times cheaper per query once m is within a couple orders of
-magnitude of the table size.
+Cost is ~O((n_table + m) log) streaming work instead of m random-probe
+chains.  Which engine wins on the GPU is an open measurement; the join is
+selected with KAT_TPU_JOIN=1 (core/tables.py).
 """
 
 from __future__ import annotations
@@ -65,6 +60,9 @@ def _run_max_multi(words, cs):
         if 2 * d < n:
             reach = reach & jnp.concatenate(
                 [jnp.zeros((d,), jnp.bool_), reach[:-d]])
+        # one kernel per pass: each reads two positions of the last, so
+        # fused passes would recompute 2^passes inputs per element
+        cs, reach = jax.lax.optimization_barrier((cs, reach))
         d *= 2
     return cs
 
@@ -73,11 +71,8 @@ def _run_max(words, c):
     return _run_max_multi(words, (c,))[0]
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("use_kernel", "interpret",
-                                    "queries_sorted"))
-def counts_join(twords, tcounts, qwords, use_kernel: bool = False,
-                interpret: bool = False,
+@functools.partial(jax.jit, static_argnames=("queries_sorted",))
+def counts_join(twords, tcounts, qwords,
                 queries_sorted: bool = False) -> jax.Array:
     """Counts for query keys against a sorted unique-key table.
 
@@ -87,17 +82,13 @@ def counts_join(twords, tcounts, qwords, use_kernel: bool = False,
     qwords: query key-word planes (any matching shape); sentinel-key
       queries return 0.  Returns uint32 counts in the queries' shape.
 
-    use_kernel selects the Pallas sort/merge kernels (TPU) vs the pure
-    XLA formulations (CPU tests / fallback); results are identical.
-
     queries_sorted=True asserts the flattened queries are ALREADY in
     ascending lexicographic key order (sentinel queries therefore at the
-    tail) and skips both the query sort and — on the kernel path — the
-    un-permute sort: the compaction's stable stream order IS query order
-    (equal-key queries may interleave through the unstable bitonic merge,
-    but equal keys have equal answers).  comp's probe streams are another
+    tail) and skips the query sort.  comp's probe streams are another
     sorted table's own keys, so its pass-1/2 joins ride this for free
     (src/comp.cc:401-404,447 walks hash1/hash2 in iteration order)."""
+    from .merge import merge_sorted
+
     n_words = len(twords)
     shape = qwords[0].shape
     qs = tuple(q.reshape(-1).astype(jnp.uint32) for q in qwords)
@@ -112,63 +103,25 @@ def counts_join(twords, tcounts, qwords, use_kernel: bool = False,
     if queries_sorted:
         # already key-ordered; idx (ascending) is a valid tiebreak as-is
         sq = qs + (idx,)
-    elif use_kernel:
-        from .sort_kernel import sort_planes_padded
-
-        # idx rides as a FINAL KEY word: the sort pads with all-sentinel
-        # rows (idx=SENTINEL) which then order strictly after any real
-        # sentinel-key query (idx<SENTINEL), so slicing the pad back off
-        # can never drop a real query.
-        sq = sort_planes_padded(qs + (idx,), n_words + 1,
-                                interpret=interpret)
     else:
         sq = jax.lax.sort(qs + (idx,), num_keys=n_words)
 
-    if use_kernel:
-        from .merge_kernel import merge_sorted_kernel
-
-        mw, mp = merge_sorted_kernel(twords, (tcounts, tidx),
-                                     sq[:n_words], (zcnt, sq[n_words]),
-                                     interpret=interpret)
-    else:
-        from .merge import merge_sorted
-
-        mw, mp = merge_sorted(twords, (tcounts, tidx),
-                              sq[:n_words], (zcnt, sq[n_words]))
-
+    mw, mp = merge_sorted(twords, (tcounts, tidx),
+                          sq[:n_words], (zcnt, sq[n_words]))
     mcnt, midx = mp
     big_n = mw[0].shape[0]
     c = _run_max(mw, mcnt)
 
-    if use_kernel:
-        # pull the m query rows out of the merged stream with ONE
-        # streaming compaction pass (each query idx appears exactly once
-        # — table rows carry SENTINEL, merge padding 0); unsorted queries
-        # then un-permute with a sort over m instead of the full merged
-        # length, sorted queries need nothing more.
-        from .reduce_kernel import compact_flagged
-        from .sort_kernel import sort_planes_padded
-
-        keep = ((midx != SENTINEL) & (midx != 0)).astype(jnp.uint32)
-        ki, kc, _nk = compact_flagged((midx, c), keep, m,
-                                      interpret=interpret)
-        if queries_sorted:
-            out = kc.astype(jnp.uint32)
-        else:
-            _si, sc = sort_planes_padded((ki, kc), 1, interpret=interpret)
-            out = sc[:m].astype(jnp.uint32)
-    else:
-        si, sc = jax.lax.sort((midx, c), num_keys=1)
-        # ascending idx: [merge padding idx=0 | queries idx 1..m | table
-        # rows idx=SENTINEL]; the merge's pad count is static.
-        front = big_n - n_t - m
-        out = sc[front:front + m].astype(jnp.uint32)
+    si, sc = jax.lax.sort((midx, c), num_keys=1)
+    # ascending idx: [merge padding idx=0 | queries idx 1..m | table
+    # rows idx=SENTINEL]; the merge's pad count is static.
+    front = big_n - n_t - m
+    out = sc[front:front + m].astype(jnp.uint32)
     return out.reshape(shape)
 
 
-@functools.partial(jax.jit, static_argnames=("use_kernel", "interpret"))
-def counts_join_dual(awords, acounts, bwords, bcounts,
-                     use_kernel: bool = False, interpret: bool = False):
+@jax.jit
+def counts_join_dual(awords, acounts, bwords, bcounts):
     """Counts of each sorted unique-key table's keys in the OTHER table,
     through ONE merge.
 
@@ -185,40 +138,23 @@ def counts_join_dual(awords, acounts, bwords, bcounts,
     Returns (b_counts_for_a_keys [len(a)], a_counts_for_b_keys [len(b)]),
     uint32; sentinel (padding) rows get 0.
     """
-    n_words = len(awords)
+    from .merge import merge_sorted
+
     na = awords[0].shape[0]
     nb = bwords[0].shape[0]
     a_payload = (acounts, jnp.zeros((na,), jnp.uint32),
                  jnp.ones((na,), jnp.uint32))
     b_payload = (jnp.zeros((nb,), jnp.uint32), bcounts,
                  jnp.full((nb,), 2, jnp.uint32))
-
-    if use_kernel:
-        from .merge_kernel import merge_sorted_kernel
-
-        mw, mp = merge_sorted_kernel(awords, a_payload, bwords, b_payload,
-                                     interpret=interpret)
-    else:
-        from .merge import merge_sorted
-
-        mw, mp = merge_sorted(awords, a_payload, bwords, b_payload)
+    mw, mp = merge_sorted(awords, a_payload, bwords, b_payload)
 
     mca, mcb, msrc = mp
     ra, rb = _run_max_multi(mw, (mca, mcb))
 
-    if use_kernel:
-        from .reduce_kernel import compact_flagged
-
-        out_a, _n1 = compact_flagged((rb,), (msrc == 1).astype(jnp.uint32),
-                                     na, interpret=interpret)
-        out_b, _n2 = compact_flagged((ra,), (msrc == 2).astype(jnp.uint32),
-                                     nb, interpret=interpret)
-    else:
-        # stable sort by NOT-kept moves each table's rows to the front in
-        # stream (= that table's key) order
-        _f, sa = jax.lax.sort(((msrc != 1).astype(jnp.uint32), rb),
-                              num_keys=1)
-        _g, sb = jax.lax.sort(((msrc != 2).astype(jnp.uint32), ra),
-                              num_keys=1)
-        out_a, out_b = sa[:na], sb[:nb]
-    return out_a.astype(jnp.uint32), out_b.astype(jnp.uint32)
+    # stable sort by NOT-kept moves each table's rows to the front in
+    # stream (= that table's key) order
+    _f, sa = jax.lax.sort(((msrc != 1).astype(jnp.uint32), rb),
+                          num_keys=1)
+    _g, sb = jax.lax.sort(((msrc != 2).astype(jnp.uint32), ra),
+                          num_keys=1)
+    return sa[:na].astype(jnp.uint32), sb[:nb].astype(jnp.uint32)

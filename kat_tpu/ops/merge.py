@@ -1,16 +1,14 @@
 """Bitonic merge of two sorted key streams — pure XLA, no sort.
 
-`lax.sort` has no way to exploit pre-sortedness, so merging the resident
-count table (always sorted) with a freshly sorted window batch through it
-costs a full O(n log^2 n) comparator sort (~420ms at 84M on v5e).  A
-bitonic *merge* needs only log2(n) compare-exchange stages, each a pure
-elementwise min/max pass: [A ascending | B descending] is bitonic, and
-each stage halves the disorder scale.  Every stage is reshape + slice +
-select — bandwidth-bound, no scatters/gathers, compiles instantly.
+`lax.sort` has no way to exploit pre-sortedness, so merging two sorted
+streams through it costs a full comparator sort.  A bitonic *merge*
+needs only log2(n) compare-exchange stages, each a pure elementwise
+min/max pass: [A ascending | B descending] is bitonic, and each stage
+halves the disorder scale.  Every stage is reshape + slice + select —
+bandwidth-bound, no scatters/gathers.
 
-This replaces the role of jellyfish's hash-merge in the streaming LSM
-design (reference deps/jellyfish-2.2.0/include/jellyfish/hash_counter.hpp
-cooperative updates): table + fresh-batch consolidation.
+The sort-merge join (ops/join.py) merges a sorted table with sorted
+queries, or two sorted tables, through it.
 
 Keys are tuples of uint32 words in lexicographic significance order (2 for
 narrow, 4 for wide) with sentinel (all-ones) padding keys sorting last;
@@ -77,5 +75,8 @@ def merge_sorted(a_words, a_payload, b_words, b_payload):
             jnp.stack([jnp.where(swap, b, t), jnp.where(swap, t, b)],
                       axis=1).reshape(-1)
             for t, b in zip(top, bot)]
+        # one kernel per stage: each reads two positions of the last, so
+        # fused stages would recompute 2^stages inputs per element
+        planes = list(jax.lax.optimization_barrier(planes))
         s //= 2
     return tuple(planes[:n_words]), tuple(planes[n_words:])

@@ -1,12 +1,9 @@
-"""Mesh collectives that lower on real TPUs for every dtype we use.
+"""Mesh collectives that stay exact for every dtype we use.
 
-TPU all-reduces cannot carry 64-bit integers: XLA:TPU emulates *local*
-u64/s64 arithmetic as u32 pairs, but `CrossReplicaSum` has no 64-bit
-lowering, so a plain `jax.lax.psum` over the uint64 counters the analysis
-layer keeps for reference parity (CompCounters / SparseMatrix are uint64
-in the reference, lib/include/kat/comp_counters.hpp,
-lib/include/kat/sparse_matrix.hpp) compiles on CPU but fails to lower on
-a real chip.
+The analysis layer keeps uint64 counters for reference parity
+(CompCounters / SparseMatrix are uint64 in the reference,
+lib/include/kat/comp_counters.hpp, lib/include/kat/sparse_matrix.hpp), and
+not every backend lowers a 64-bit integer all-reduce.
 
 `psum_exact` keeps the uint64 API exact by decomposing every 64-bit
 integer leaf into four 16-bit limbs held in uint32, all-reducing those,
@@ -18,7 +15,8 @@ Each limb is < 2**16, so its u32 all-reduce is overflow-free for meshes
 up to 65536 devices; the recombination is modular, so signed (two's
 complement) leaves come out exact as well.  The decomposition runs on
 EVERY backend — the CPU test suite then exercises byte-for-byte the same
-collective the TPU runs.
+collective the GPUs run.  Whether a plain 64-bit psum over NCCL would do is
+an open measurement (ROADMAP D4).
 """
 
 from __future__ import annotations
@@ -37,7 +35,7 @@ def _is_wide_int(x) -> bool:
 
 
 def psum_exact(tree, axis_names):
-    """`jax.lax.psum` with exact 64-bit integer leaves on TPU.
+    """`jax.lax.psum` with exact 64-bit integer leaves on every backend.
 
     Non-64-bit leaves pass through a regular psum untouched; 64-bit
     integer leaves ride as four uint32 limb planes (one fused psum for

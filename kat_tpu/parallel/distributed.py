@@ -2,11 +2,11 @@
 
 The reference has no distributed backend at all — pthreads + one shared
 mmap'd hash are the whole story (SURVEY §2.5 P9, lib locks_pthread.hpp).
-This module is the TPU framework's replacement:
+This module is the framework's replacement:
 
   - `init_distributed()` brings up the jax.distributed process group
-    (coordinator discovery via standard env vars or explicit args); within
-    a slice collectives ride ICI, across hosts DCN.
+    (coordinator discovery via standard env vars or explicit args);
+    within a host collectives ride NVLink, across hosts the network.
   - `shard_files(paths)` splits input files across hosts (data parallelism,
     the multi-host analogue of the cooperative input pool P1).
   - `global_mesh()` builds a mesh over all devices of all processes; the
@@ -33,7 +33,7 @@ def init_distributed(coordinator_address: str | None = None,
 
     Arguments default from the standard environment
     (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or the
-    TPU metadata autodetection built into jax.distributed.initialize).
+    cluster autodetection built into jax.distributed.initialize).
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS")

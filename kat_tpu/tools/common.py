@@ -155,7 +155,7 @@ class Input:
             import jax
 
             n_dev = len(jax.devices())
-            # Mesh-sharded counting engages automatically on multi-chip
+            # Mesh-sharded counting engages automatically on multi-device
             # accelerator backends; on CPU (tests, virtual meshes) it is
             # opt-in via KAT_TPU_SHARD=1 because per-shape shard_map
             # compiles dwarf tiny workloads.
@@ -164,41 +164,9 @@ class Input:
             want_shard = (os.environ.get("KAT_TPU_SHARD") == "1"
                           or jax.default_backend() != "cpu"
                           or jax.process_count() > 1)
-            from ..core import minimizer as _mini
-            from ..io import fastx as _fastx
-            from ..io import native as _native
-
-            mini_env = os.environ.get("KAT_TPU_MINIMIZER")
-            paths_, trims_ = self._shard_paths_trims()
-            use_mini = (
-                mini_env != "0"
-                # auto-on for TPU-class backends (the chunked flush is
-                # the fast path there); KAT_TPU_MINIMIZER=1 forces the
-                # interpret-kernel version on CPU (tests)
-                and (mini_env == "1" or counting.kernels_enabled())
-                and self.canonical
-                and _mini.supports(self.mer_len)
-                and _native.available()
-                and not os.environ.get("KAT_TPU_NO_NATIVE")
-                and jax.process_count() == 1
-                and not (n_dev > 1 and want_shard
-                         and not os.environ.get("KAT_TPU_NO_SHARD"))
-                and not any(_fastx.is_stream_path(p) for p in paths_))
             if (n_dev > 1 and want_shard
                     and not os.environ.get("KAT_TPU_NO_SHARD")):
                 self.shards = self._count_sharded(n_dev)
-            elif use_mini:
-                # Minimizer-bucketed chunked flush (core/bucketed.py):
-                # the router pre-groups supermers so the device sorts
-                # per chunk in one pass instead of globally.
-                from ..core import bucketed
-
-                self.table = bucketed.count_paths_bucketed(
-                    paths_, self.mer_len, trim5=trims_,
-                    initial_capacity=min(cap0,
-                                         _next_pow2(self.hash_size)),
-                    max_capacity=max(_next_pow2(self.hash_size), cap0),
-                    disable_grow=self.disable_grow)
             elif self.mer_len > kmers.MAX_K:
                 from ..core import wide
 
@@ -217,20 +185,13 @@ class Input:
                 if native.available() and not os.environ.get(
                         "KAT_TPU_NO_NATIVE"):
                     # Uniform batches from the native reader: fused
-                    # extract+reduce flush.  On the kernel path size
-                    # flushes by WINDOW COUNT so whatever batch geometry
-                    # the reader emits fills the sort kernel's padded
-                    # pow2 geometry (a fixed batch count can waste up to
-                    # ~2x sort bandwidth on sentinel padding).
+                    # extract+reduce flush.
                     sc = counting.CodeStreamingCounter(
                         self.mer_len, self.canonical,
                         initial_capacity=min(cap0,
                                              _next_pow2(self.hash_size)),
                         max_capacity=max(_next_pow2(self.hash_size), cap0),
-                        disable_grow=self.disable_grow,
-                        flush_windows=(1 << 26 if
-                                       counting.kernels_enabled()
-                                       else None))
+                        disable_grow=self.disable_grow)
                     for batch in self._code_batches():
                         sc.add_codes(batch)
                 else:

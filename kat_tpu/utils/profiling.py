@@ -2,8 +2,8 @@
 
 The reference's observability is per-stage wall-clock prints
 (boost::timer::auto_cpu_timer, SURVEY §5) — kept in utils/timer.py.  This
-module adds the TPU-native layer: set KAT_TPU_PROFILE=/some/dir to capture
-a full jax.profiler trace (XLA ops, HBM transfers, host callbacks) around
+module adds the device layer: set KAT_TPU_PROFILE=/some/dir to capture
+a full jax.profiler trace (XLA ops, device transfers, host callbacks) around
 any CLI run, viewable in TensorBoard/Perfetto; `annotate` adds named trace
 spans around framework phases.
 """
@@ -23,7 +23,11 @@ def maybe_trace():
         return
     import jax
 
-    jax.profiler.start_trace(trace_dir)
+    # Python-call tracing would add an event per interpreted call (tens of
+    # MB for one hist run); device ops and TraceAnnotation spans remain.
+    opts = jax.profiler.ProfileOptions()
+    opts.python_tracer_level = 0
+    jax.profiler.start_trace(trace_dir, profiler_options=opts)
     try:
         yield
     finally:

@@ -1,10 +1,9 @@
-"""psum_exact: the 64-bit-integer all-reduce that lowers on real TPUs.
+"""psum_exact: the 64-bit-integer all-reduce built from 16-bit limbs.
 
-TPU CrossReplicaSum has no 64-bit lowering (found on-chip: the u64
-dropped-counter psum in the sharded flush failed to compile on the real
-v5e while every CPU test passed), so all 64-bit reductions ride as four
-16-bit limbs in uint32.  These tests pin the decomposition's exactness —
-mod-2**64 wraparound, signed leaves, mixed trees — against python ints.
+Not every backend lowers a 64-bit integer all-reduce, so all 64-bit
+reductions ride as four 16-bit limbs in uint32.  These tests pin the
+decomposition's exactness — mod-2**64 wraparound, signed leaves, mixed
+trees — against python ints.
 """
 
 import jax

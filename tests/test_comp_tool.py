@@ -169,33 +169,24 @@ def test_comp_stats_file(tmp_path, seq_sets):
     assert len(body) == 101
 
 
-@pytest.mark.kernel_interpret
 @pytest.mark.parametrize("canonical1", [True, False],
                          ids=["sorted-probes", "unsorted-probes"])
 def test_comp_join_lookup_matches_default(tmp_path, seq_sets, monkeypatch,
                                           canonical1):
-    """comp with the sort-merge-join lookups forced (interpret-mode Pallas
-    kernels) is bit-identical to the binary-search run.  canonical inputs
-    take the sorted-probe fast path (pass1/2 queries are a sorted table's
-    own keys — no query sort, no un-permute); a non-canonical hash1 makes
-    pass1's canonicalized probe stream unsorted and must fall back to the
-    general join."""
+    """comp with the sort-merge-join lookups forced (KAT_TPU_JOIN=1) is
+    bit-identical to the binary-search run.  canonical inputs take the
+    sorted-probe fast path (pass1/2 queries are a sorted table's own
+    keys — no query sort); a non-canonical hash1 makes pass1's
+    canonicalized probe stream unsorted and must fall back to the general
+    join."""
     s1, s2 = seq_sets
     k = 9
     (tmp_path / "ref").mkdir()
     (tmp_path / "join").mkdir()
     want = _run_comp(tmp_path / "ref", s1, s2, k, canonical1=canonical1)
 
-    monkeypatch.setenv("KAT_TPU_KERNEL", "1")
     monkeypatch.setenv("KAT_TPU_JOIN", "1")
-    from kat_tpu.core import counting as _counting
-
-    _counting.kernels_enabled.cache_clear()
-    try:
-        got = _run_comp(tmp_path / "join", s1, s2, k,
-                        canonical1=canonical1)
-    finally:
-        _counting.kernels_enabled.cache_clear()
+    got = _run_comp(tmp_path / "join", s1, s2, k, canonical1=canonical1)
     assert got.counters == want.counters
     np.testing.assert_array_equal(got.main_mx.data, want.main_mx.data)
     np.testing.assert_array_equal(got.spectrum1, want.spectrum1)

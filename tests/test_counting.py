@@ -101,8 +101,8 @@ def test_table_from_numpy_roundtrip():
 
 
 def test_mask_bincount_matches_u64_scatter():
-    """stats.mask_bincount (u32-accumulating scatter, the TPU-fast form)
-    is exact for 0/1 masks — 1D, 2D, and mode='drop'."""
+    """stats.mask_bincount (u32-accumulating scatter) is exact for 0/1
+    masks — 1D, 2D, and mode='drop'."""
     import jax.numpy as jnp
     import numpy as np
 
@@ -155,12 +155,10 @@ def test_window_hit_counts_matches_window_counts():
 
 
 def test_flush_budget_recomputed_on_slab_growth():
-    """A short FIRST batch (common with parallel range readers) must not
-    carry its slabs-per-flush budget onto full-size slabs — that stacked
-    flush_windows x (slab ratio) of HBM into one flush (25GB OOM on
-    chip, round 4).  The budget must be recomputed at every slab-shape
-    adoption, and counts must stay exact."""
-    import jax.numpy as jnp
+    """A short FIRST batch (common with parallel range readers) is flushed
+    on its own when full-size slabs arrive; the counter then adopts the
+    larger slab shape, stacks at most flush_batches of those per flush,
+    and counts stay exact."""
     import numpy as np
 
     from kat_tpu.core import counting
@@ -168,24 +166,22 @@ def test_flush_budget_recomputed_on_slab_growth():
     rng = np.random.default_rng(0)
     k = 9
     L = 64
-    wpr = L - k + 1
     sc = counting.CodeStreamingCounter(
         k, canonical=True, initial_capacity=1 << 14,
-        max_capacity=1 << 18, flush_windows=8 * 32 * wpr)
+        max_capacity=1 << 18, flush_batches=8)
 
     max_stacked = 0
     small = rng.integers(0, 4, size=(2, L), dtype=np.uint8)
-    sc.add_codes(small)  # tiny first slab: budget computed for 2 rows
+    sc.add_codes(small)  # tiny first slab
     big_batches = [rng.integers(0, 4, size=(32, L), dtype=np.uint8)
                    for _ in range(40)]
     for b in big_batches:
         sc.add_codes(b)
         if sc._codes:  # _shape is None right after a flush
+            assert sc._shape == (32, L)
             max_stacked = max(max_stacked,
                               len(sc._codes) * sc._shape[0])
-    # stacked rows per flush must track the WINDOW budget (8 slabs of 32
-    # rows), not the 128-slab budget the 2-row first batch implied
-    assert max_stacked <= 9 * 32, max_stacked
+    assert max_stacked == 7 * 32, max_stacked
 
     table = sc.finish()
     import oracle
@@ -200,61 +196,50 @@ def test_flush_budget_recomputed_on_slab_growth():
     assert got == dict(want)
 
 
-def test_binned_sum_sorted_path_parity(monkeypatch):
-    """binned_sum's sort+reduce path (interpret kernels) must equal the
-    scatter path exactly, including bins that never occur and the full
-    0..nb-1 range."""
+@pytest.mark.parametrize("n,nb", [((1 << 20) + 4099, 37),
+                                  ((1 << 20) + 17, 10002)])
+def test_binned_sums_large_parity(n, nb):
+    """binned_sums over more than 2^20 elements (several masks sharing
+    one bin index) equals numpy's bincount exactly, including bins that
+    never occur and the full 0..nb-1 range."""
     import jax.numpy as jnp
-    import numpy as np
 
-    from kat_tpu.core import counting, stats
+    from kat_tpu.core import stats
 
-    monkeypatch.setenv("KAT_TPU_KERNEL", "1")
-    counting.kernels_enabled.cache_clear()
-    monkeypatch.setattr(stats, "BINNED_SORT_MIN", 1)
-    try:
-        rng = np.random.default_rng(2)
-        n = 4099  # unique shape => fresh trace under the patched gate
-        bins = jnp.asarray(rng.integers(0, 37, size=n).astype(np.int32))
-        mask = jnp.asarray(rng.random(n) < 0.6)
-        got = np.asarray(stats.binned_sum(37, bins, mask))
-        want = np.asarray(stats.mask_bincount((37,), bins, mask))
-        np.testing.assert_array_equal(got, want)
-        assert got.dtype == np.uint64
-    finally:
-        counting.kernels_enabled.cache_clear()
+    rng = np.random.default_rng(n)
+    bins = rng.integers(0, nb, size=n).astype(np.int32)
+    masks = [rng.random(n) < 0.6, rng.random(n) < 0.01]
+    got = stats.binned_sums(nb, jnp.asarray(bins),
+                            tuple(jnp.asarray(m) for m in masks))
+    for g, m in zip(got, masks):
+        g = np.asarray(g)
+        assert g.dtype == np.uint64
+        np.testing.assert_array_equal(
+            g, np.bincount(bins, weights=m, minlength=nb).astype(np.uint64))
 
 
-def test_monotone_packed_sums_parity(monkeypatch):
-    """monotone_packed_sums' shared-sort path (interpret kernels) must
-    equal per-request scatters exactly — including derived bins that
-    repeat across packed runs (the packed key is finer than each derived
-    key, so the epilogue accumulates several runs into one bin)."""
+def test_monotone_packed_sums_parity():
+    """monotone_packed_sums over more than 2^20 packed keys equals numpy
+    per request — including derived bins that repeat across packed runs
+    (the packed key is finer than each derived key)."""
     import jax.numpy as jnp
-    import numpy as np
 
-    from kat_tpu.core import counting, stats
+    from kat_tpu.core import stats
 
-    monkeypatch.setenv("KAT_TPU_KERNEL", "1")
-    counting.kernels_enabled.cache_clear()
-    monkeypatch.setattr(stats, "BINNED_SORT_MIN", 1)
-    try:
-        rng = np.random.default_rng(7)
-        n = 4111  # unique shape => fresh trace under the patched gate
-        # mimic comp pass 2: two monotone step binnings of one value
-        v = rng.integers(0, 500, size=n)
-        spec = np.minimum(v, 36).astype(np.int32)       # dm = 37
-        col = np.minimum((v + 2) // 3, 28).astype(np.int32)  # d2 = 29
-        packed = jnp.asarray(spec * 29 + col)
-        m0 = jnp.asarray(rng.random(n) < 0.6)
-        m1 = jnp.asarray(rng.random(n) < 0.3)
-        reqs = ((29, 37, 0), (1, 29, 1), (29, 37, 1))
-        got = stats.monotone_packed_sums(packed, 37 * 29, reqs,
-                                         (m0, m1), runs_cap=37 + 29 + 8)
-        for g, (div, mod, mi) in zip(got, reqs):
-            want = stats.mask_bincount(
-                (mod,), (packed // div) % mod, (m0, m1)[mi])
-            np.testing.assert_array_equal(np.asarray(g), np.asarray(want))
-            assert np.asarray(g).dtype == np.uint64
-    finally:
-        counting.kernels_enabled.cache_clear()
+    rng = np.random.default_rng(7)
+    n = (1 << 20) + 4111
+    # mimic comp pass 2: two monotone step binnings of one value
+    v = rng.integers(0, 500, size=n)
+    spec = np.minimum(v, 36).astype(np.int32)       # dm = 37
+    col = np.minimum((v + 2) // 3, 28).astype(np.int32)  # d2 = 29
+    packed = spec * 29 + col
+    m0 = rng.random(n) < 0.6
+    m1 = rng.random(n) < 0.3
+    reqs = ((29, 37, 0), (1, 29, 1), (29, 37, 1))
+    got = stats.monotone_packed_sums(
+        jnp.asarray(packed), reqs, (jnp.asarray(m0), jnp.asarray(m1)))
+    for g, (div, mod, mi) in zip(got, reqs):
+        want = np.bincount((packed // div) % mod, weights=(m0, m1)[mi],
+                           minlength=mod).astype(np.uint64)
+        np.testing.assert_array_equal(np.asarray(g), want)
+        assert np.asarray(g).dtype == np.uint64

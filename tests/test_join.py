@@ -1,8 +1,8 @@
 """Sort-merge-join lookup engine (ops/join.py): parity with the binary
-search on narrow and wide tables, both formulations (pure XLA and
-interpret-mode Pallas kernels), across the cases that stress its
+search on narrow and wide tables across the cases that stress its
 bookkeeping — sentinel queries, absent keys, heavy duplication, merge /
-sort padding boundaries, and tables with unfilled capacity."""
+sort padding boundaries, key widths from 2 to 8 words, and tables with
+unfilled capacity."""
 
 import numpy as np
 import pytest
@@ -41,10 +41,8 @@ def _expect(keys, cnts, q):
     return np.array([lut.get(x, 0) for x in q.tolist()], np.uint32)
 
 
-@pytest.mark.parametrize("use_kernel", [False, True],
-                         ids=["xla", "kernel-interpret"])
-@pytest.mark.parametrize("m", [5, 700, 2048])
-def test_join_narrow_parity(use_kernel, m):
+@pytest.mark.parametrize("m", [5, 700, 2048, 9000, 30_000])
+def test_join_narrow_parity(m):
     rng = np.random.default_rng(7 + m)
     table, keys = _narrow_table(rng, n_keys=300, capacity=1024)
     cnts = np.asarray(table.counts[:300])
@@ -55,33 +53,27 @@ def test_join_narrow_parity(use_kernel, m):
     qlo = jnp.asarray((q & np.uint64(0xFFFFFFFF)).astype(np.uint32))
 
     got = counts_join((table.keys_hi, table.keys_lo), table.counts,
-                      (qhi, qlo), use_kernel=use_kernel,
-                      interpret=use_kernel)
+                      (qhi, qlo))
     ref = counting.lookup(table, qhi, qlo)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
     np.testing.assert_array_equal(np.asarray(got), _expect(tk, cnts, q))
 
 
-@pytest.mark.parametrize("use_kernel", [False, True],
-                         ids=["xla", "kernel-interpret"])
-def test_join_preserves_query_shape(use_kernel):
+def test_join_preserves_query_shape():
     rng = np.random.default_rng(11)
     table, _ = _narrow_table(rng, n_keys=50, capacity=64)
     q = rng.integers(0, 500, size=(6, 37)).astype(np.uint64)
     qhi = jnp.asarray((q >> np.uint64(32)).astype(np.uint32))
     qlo = jnp.asarray((q & np.uint64(0xFFFFFFFF)).astype(np.uint32))
     got = counts_join((table.keys_hi, table.keys_lo), table.counts,
-                      (qhi, qlo), use_kernel=use_kernel,
-                      interpret=use_kernel)
+                      (qhi, qlo))
     assert got.shape == (6, 37)
     ref = counting.lookup(table, qhi, qlo)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
 
-@pytest.mark.parametrize("use_kernel", [False, True],
-                         ids=["xla", "kernel-interpret"])
-@pytest.mark.parametrize("n_words", [4, 6])
-def test_join_wide_parity(use_kernel, n_words):
+@pytest.mark.parametrize("n_words", [3, 4, 6, 8])
+def test_join_wide_parity(n_words):
     rng = np.random.default_rng(13 + n_words)
     n_keys, cap, m = 120, 256, 400
     kw = rng.integers(0, 1 << 16, size=(n_keys, n_words)).astype(np.uint32)
@@ -99,18 +91,15 @@ def test_join_wide_parity(use_kernel, n_words):
     qw[sent] = SENTINEL
     qwords = tuple(jnp.asarray(qw[:, i]) for i in range(n_words))
 
-    got = counts_join(table.words, table.counts, qwords,
-                      use_kernel=use_kernel, interpret=use_kernel)
+    got = counts_join(table.words, table.counts, qwords)
     from kat_tpu.core.wide import lookup_wide
 
     ref = lookup_wide(table, qwords)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
 
-@pytest.mark.parametrize("use_kernel", [False, True],
-                         ids=["xla", "kernel-interpret"])
-@pytest.mark.parametrize("m", [5, 700, 2048])
-def test_join_sorted_queries_narrow(use_kernel, m):
+@pytest.mark.parametrize("m", [5, 700, 2048, 12_000])
+def test_join_sorted_queries_narrow(m):
     """queries_sorted=True (the comp pass1/2 fast path: another table's
     own keys) matches the general path exactly — duplicates, absent keys
     and sentinel tails included."""
@@ -124,16 +113,13 @@ def test_join_sorted_queries_narrow(use_kernel, m):
     qlo = jnp.asarray((q & np.uint64(0xFFFFFFFF)).astype(np.uint32))
 
     got = counts_join((table.keys_hi, table.keys_lo), table.counts,
-                      (qhi, qlo), use_kernel=use_kernel,
-                      interpret=use_kernel, queries_sorted=True)
+                      (qhi, qlo), queries_sorted=True)
     ref = counting.lookup(table, qhi, qlo)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
     np.testing.assert_array_equal(np.asarray(got), _expect(tk, cnts, q))
 
 
-@pytest.mark.parametrize("use_kernel", [False, True],
-                         ids=["xla", "kernel-interpret"])
-def test_join_sorted_queries_are_table_keys(use_kernel):
+def test_join_sorted_queries_are_table_keys():
     """The exact comp shape: probe one table with ANOTHER sorted table's
     key planes (sentinel capacity tail included) and assume_sorted
     through tables.lookup."""
@@ -142,17 +128,15 @@ def test_join_sorted_queries_are_table_keys(use_kernel):
     t_b, _ = _narrow_table(rng, n_keys=150, capacity=256)
     qw = (t_b.keys_hi, t_b.keys_lo)  # sorted, sentinels at tail
     got = counts_join((t_a.keys_hi, t_a.keys_lo), t_a.counts, qw,
-                      use_kernel=use_kernel, interpret=use_kernel,
                       queries_sorted=True)
     ref = counting.lookup(t_a, qw[0], qw[1])
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
 
-@pytest.mark.parametrize("use_kernel", [False, True],
-                         ids=["xla", "kernel-interpret"])
-def test_join_sorted_queries_wide(use_kernel):
-    rng = np.random.default_rng(29)
-    n_words, m = 4, 400
+@pytest.mark.parametrize("n_words", [3, 4, 8])
+def test_join_sorted_queries_wide(n_words):
+    rng = np.random.default_rng(29 + n_words)
+    m = 400
     kw = rng.integers(0, 1 << 16, size=(150, n_words)).astype(np.uint32)
     kw = np.unique(kw, axis=0)
     cnts = rng.integers(1, 99, size=len(kw)).astype(np.uint32)
@@ -170,7 +154,6 @@ def test_join_sorted_queries_wide(use_kernel):
     qwords = tuple(jnp.asarray(qw[:, i]) for i in range(n_words))
 
     got = counts_join(table.words, table.counts, qwords,
-                      use_kernel=use_kernel, interpret=use_kernel,
                       queries_sorted=True)
     from kat_tpu.core.wide import lookup_wide
 
@@ -222,21 +205,20 @@ def test_compact_table_preserves_lookups():
     assert tables.compact(small, min_capacity=128) is small
 
 
-@pytest.mark.parametrize("use_kernel", [False, True],
-                         ids=["xla", "kernel-interpret"])
-def test_join_dual_matches_two_lookups(use_kernel):
+@pytest.mark.parametrize("na,cap_a,nb,cap_b", [(220, 512, 90, 128),
+                                               (3000, 4096, 5000, 8192)])
+def test_join_dual_matches_two_lookups(na, cap_a, nb, cap_b):
     """counts_join_dual answers BOTH cross-probe directions from one
     merge, exactly matching two independent binary searches — including
     unequal capacities and sentinel capacity tails."""
-    rng = np.random.default_rng(31)
-    t_a, _ = _narrow_table(rng, n_keys=220, capacity=512)
-    t_b, _ = _narrow_table(rng, n_keys=90, capacity=128)
+    rng = np.random.default_rng(31 + na)
+    t_a, _ = _narrow_table(rng, n_keys=na, capacity=cap_a)
+    t_b, _ = _narrow_table(rng, n_keys=nb, capacity=cap_b)
     from kat_tpu.ops.join import counts_join_dual
 
     got_a, got_b = counts_join_dual(
         (t_a.keys_hi, t_a.keys_lo), t_a.counts,
-        (t_b.keys_hi, t_b.keys_lo), t_b.counts,
-        use_kernel=use_kernel, interpret=use_kernel)
+        (t_b.keys_hi, t_b.keys_lo), t_b.counts)
     ref_a = counting.lookup(t_b, t_a.keys_hi, t_a.keys_lo)
     ref_b = counting.lookup(t_a, t_b.keys_hi, t_b.keys_lo)
     np.testing.assert_array_equal(np.asarray(got_a), np.asarray(ref_a))
@@ -245,11 +227,9 @@ def test_join_dual_matches_two_lookups(use_kernel):
     assert int(np.asarray(got_a).sum()) > 0
 
 
-@pytest.mark.parametrize("use_kernel", [False, True],
-                         ids=["xla", "kernel-interpret"])
-def test_join_dual_wide(use_kernel):
-    rng = np.random.default_rng(37)
-    n_words = 4
+@pytest.mark.parametrize("n_words", [4, 8])
+def test_join_dual_wide(n_words):
+    rng = np.random.default_rng(37 + n_words)
 
     shared = rng.integers(0, 1 << 8,
                           size=(25, n_words)).astype(np.uint32)
@@ -270,11 +250,29 @@ def test_join_dual_wide(use_kernel):
     from kat_tpu.ops.join import counts_join_dual
 
     got_a, got_b = counts_join_dual(t_a.words, t_a.counts,
-                                    t_b.words, t_b.counts,
-                                    use_kernel=use_kernel,
-                                    interpret=use_kernel)
+                                    t_b.words, t_b.counts)
     np.testing.assert_array_equal(
         np.asarray(got_a), np.asarray(lookup_wide(t_b, t_a.words)))
     np.testing.assert_array_equal(
         np.asarray(got_b), np.asarray(lookup_wide(t_a, t_b.words)))
     assert int(np.asarray(got_a).sum()) > 0  # overlap by construction
+
+
+@pytest.mark.parametrize("m,n_hot", [(4000, 1), (20_000, 5)])
+def test_join_duplicate_heavy_queries(m, n_hot):
+    """Nearly every query is one of a few hot keys (poly-A-like skew):
+    long equal-key runs in the merged stream must all get the count."""
+    rng = np.random.default_rng(41 + m)
+    table, keys = _narrow_table(rng, n_keys=500, capacity=1024)
+    cnts = np.asarray(table.counts[:500])
+    tk = np.asarray(table.keys_hi[:500], np.uint64) << np.uint64(32)
+    tk |= np.asarray(table.keys_lo[:500], np.uint64)
+    q = rng.choice(tk[:n_hot], size=m)
+    cold = rng.random(m) < 0.02
+    q[cold] = rng.integers(1, 1 << 40, size=int(cold.sum())).astype(
+        np.uint64)
+    qhi = jnp.asarray((q >> np.uint64(32)).astype(np.uint32))
+    qlo = jnp.asarray((q & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    got = counts_join((table.keys_hi, table.keys_lo), table.counts,
+                      (qhi, qlo))
+    np.testing.assert_array_equal(np.asarray(got), _expect(tk, cnts, q))

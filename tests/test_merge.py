@@ -86,3 +86,45 @@ def test_merge_sentinel_tails_in_inputs():
     np.testing.assert_array_equal(lo[:4], [2, 3, 8, 9])
     np.testing.assert_array_equal(np.asarray(w)[:4], [5, 1, 2, 6])
     assert (lo[4:] == S).all()
+
+
+@pytest.mark.parametrize("na,nb,n_words,kmax", [
+    (2048, 1500, 2, 1 << 20),
+    (2048, 1500, 4, 1 << 20),
+    (3000, 5192, 2, 1 << 20),
+    (1100, 1900, 2, 1 << 20),
+    (7000, 6000, 2, 1 << 20),
+    (15 * 1024 - 10, 5, 2, 1 << 20),
+    (13 * 1024, 8 * 1024 - 77, 2, 1 << 9),
+    (1, 4096, 3, 1 << 20),
+    (4096, 1, 3, 1 << 20),
+    (333, 77, 6, 1 << 20),
+    (100, 300, 8, 1 << 20),
+    (0, 7, 8, 1 << 20),
+    (640, 640, 12, 1 << 20),
+    (500, 700, 2, 4),
+    (1000, 1000, 4, 3),
+])
+def test_merge_parity_shapes(na, nb, n_words, kmax):
+    """Non-power-of-two and lopsided stream lengths, 2..12-word keys, and
+    duplicate-heavy streams (kmax of 3-4 values per word puts most keys
+    in both streams)."""
+    rng = np.random.default_rng(na * 31 + nb * 7 + n_words + kmax)
+    a_cols, aw = _sorted_stream(rng, na, n_words, kmax=kmax)
+    b_cols, bw = _sorted_stream(rng, nb, n_words, kmax=kmax)
+    words, (w,) = merge_sorted(
+        tuple(jnp.asarray(c) for c in a_cols), (jnp.asarray(aw),),
+        tuple(jnp.asarray(c) for c in b_cols), (jnp.asarray(bw),))
+    want_cols, want_w = _merge_oracle(a_cols, aw, b_cols, bw)
+    n = na + nb
+    assert words[0].shape[0] == 1 << int(np.ceil(np.log2(max(n, 2))))
+    got = [np.asarray(c)[:n] for c in words]
+    for j in range(n_words):
+        np.testing.assert_array_equal(got[j], want_cols[j])
+    got_pairs = sorted(zip(*[c.tolist() for c in got],
+                           np.asarray(w)[:n].tolist()))
+    want_pairs = sorted(zip(*[c.tolist() for c in want_cols],
+                            want_w.tolist()))
+    assert got_pairs == want_pairs
+    assert all((np.asarray(c)[n:] == S).all() for c in words)
+    assert (np.asarray(w)[n:] == 0).all()

@@ -92,9 +92,9 @@ def test_count_non_canonical_boundary(tmp_path, k):
 
 @pytest.mark.parametrize("seed", [1, 2, 3, 4, 5])
 def test_join_fuzz_random_tables_and_queries(seed):
-    """Random (table, query) pairs through BOTH join formulations and
-    the binary search must agree exactly — sizes chosen to land on and
-    off the sort/merge padding boundaries."""
+    """Random (table, query) pairs through the join and the binary
+    search must agree exactly — sizes chosen to land on and off the
+    sort/merge padding boundaries."""
     import numpy as np
 
     import jax.numpy as jnp
@@ -122,9 +122,6 @@ def test_join_fuzz_random_tables_and_queries(seed):
 
     ref = np.asarray(counting.lookup(table, qhi, qlo))
     tw = (table.keys_hi, table.keys_lo)
-    for use_kernel in (False, True):
-        got = np.asarray(counts_join(tw, table.counts, (qhi, qlo),
-                                     use_kernel=use_kernel,
-                                     interpret=use_kernel))
-        np.testing.assert_array_equal(got, ref, err_msg=(
-            f"seed={seed} kernel={use_kernel} n={n_keys} cap={cap} m={m}"))
+    got = np.asarray(counts_join(tw, table.counts, (qhi, qlo)))
+    np.testing.assert_array_equal(got, ref, err_msg=(
+        f"seed={seed} n={n_keys} cap={cap} m={m}"))

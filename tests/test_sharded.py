@@ -10,7 +10,8 @@ import pytest
 import oracle
 from kat_tpu.core import counting, kmers
 from kat_tpu.io import fastx
-from kat_tpu.parallel.sharded import ShardedCounter, make_mesh, shard_hash
+from kat_tpu.parallel.sharded import (ShardedCounter, _fold_shift, make_mesh,
+                                     shard_hash)
 
 
 @pytest.fixture(scope="module")
@@ -140,3 +141,112 @@ def test_disable_grow_raises(batches):
         for b in code_batches:
             sc.add_codes(b)
         sc.check()
+
+
+@pytest.fixture(scope="module")
+def seqs48():
+    rng = random.Random(23)
+    out = []
+    for _ in range(48):
+        n = rng.randint(40, 140)
+        out.append("".join(
+            rng.choice("ACGTN" if rng.random() < 0.04 else "ACGT")
+            for _ in range(n)))
+    return out
+
+
+def _count(seqs, k, n_dev=8, shape=None, names=("shards",), canonical=True,
+           flush_batches=16, cap=1 << 12, slack=8.0):
+    recs = [fastx.Record(f"s{i}", s.encode()) for i, s in enumerate(seqs)]
+    mesh = make_mesh(n_dev, shape=shape or (n_dev,), axis_names=names)
+    sc = ShardedCounter(mesh, k=k, canonical=canonical, shard_capacity=cap,
+                        route_slack=slack, flush_batches=flush_batches)
+    for b in fastx.encode_batches(iter(recs), k, target_codes=1 << 12):
+        sc.add_codes(b)
+    return sc
+
+
+def _table_dict(table, k):
+    if k > kmers.MAX_K:
+        from kat_tpu.core import wide as wide_mod
+
+        keys, counts = wide_mod.table_to_numpy(table)
+        return dict(zip(keys, counts.tolist()))
+    keys, counts = counting.table_to_numpy(table)
+    return dict(zip(keys.tolist(), counts.tolist()))
+
+
+@pytest.mark.parametrize("k,n_dev,shape,names,canonical,flush_batches", [
+    (27, 8, (8,), ("shards",), True, 16),    # dest folded into key bits
+    (27, 8, (2, 4), ("dp", "kp"), True, 16),  # 2-D mesh, folded dest
+    (27, 8, (8,), ("shards",), False, 16),   # non-canonical keys
+    (27, 8, (8,), ("shards",), True, 1),     # one flush per batch
+    (31, 2, (2,), ("shards",), True, 16),    # fold into the 2 spare bits
+    (16, 8, (8,), ("shards",), True, 4),     # fold_shift 0: 2k == 32
+    (21, 8, (4, 2), ("x", "y"), True, 2),    # 4x2 mesh
+    (19, 4, (4,), ("shards",), True, 2),     # 4-device sub-mesh
+    (27, 1, (1,), ("shards",), True, 16),    # one device
+    (33, 8, (8,), ("shards",), False, 16),   # wide, non-canonical
+    (45, 8, (2, 4), ("dp", "kp"), True, 3),  # 3-word wide keys, 2-D mesh
+])
+def test_sharded_flush_matches_oracle(seqs48, k, n_dev, shape, names,
+                                      canonical, flush_batches):
+    sc = _count(seqs48, k, n_dev, shape, names, canonical, flush_batches)
+    assert _table_dict(sc.finish(), k) == dict(
+        oracle.count_seqs(seqs48, k, canonical=canonical))
+
+
+def test_fold_shift_rules():
+    assert _fold_shift(27, 8) == 22       # 10 spare bits, 8 shards fit
+    assert _fold_shift(27, 512) == 22     # boundary: dest top bit stays 0
+    assert _fold_shift(27, 513) is None   # would risk sentinel collision
+    assert _fold_shift(31, 2) == 30      # 2 spare bits: 2 shards still fit
+    assert _fold_shift(31, 3) is None    # ...but 3 would set the top bit
+    assert _fold_shift(13, 8) is None     # key under 32 bits: extra plane
+    assert _fold_shift(16, 8) == 0        # 2k == 32 exactly
+    assert _fold_shift(33, 8) is None     # wide path
+
+
+def test_sharded_histogram_k27_matches_single_device(seqs48):
+    """Folded-dest histogram (k=27) == the single-device table's."""
+    from kat_tpu.core import stats
+
+    hist = _count(seqs48, 27).histogram(1, 101, 1, 102)
+    want = oracle.count_seqs(seqs48, 27)
+    keys = np.array(sorted(want), np.uint64)
+    single = counting.table_from_numpy(
+        keys, np.array([want[int(x)] for x in keys], np.uint32))
+    np.testing.assert_array_equal(hist, np.asarray(stats.hist_from_counts(
+        single.counts, 1, 101, 1, 102), np.uint64))
+
+
+def test_overflow_across_flushes_recovers_in_place():
+    """A mid-stream flush overflow replays IN PLACE at doubled capacity
+    (deferred one flush, like the single-device optimistic commit); with
+    growth disabled it raises instead of silently truncating."""
+    rng = np.random.default_rng(5)
+    mesh = make_mesh(8)
+    cap = 1 << 7
+    codes = rng.integers(0, 4, size=(64, 80), dtype=np.uint8)
+
+    sc = ShardedCounter(mesh, k=19, shard_capacity=cap, route_slack=8.0,
+                        flush_batches=1)
+    sc.add_codes(codes)
+    sc.flush()
+    sc.add_codes(codes)  # settles + replays flush 1 before flush 2
+    sc.check()
+    assert sc.shard_capacity > cap
+    # counts exact: every window of the doubled data counted twice
+    keys, counts = counting.table_to_numpy(sc.finish())
+    want = oracle.count_seqs(
+        ["".join("ACGT"[c] for c in row) for row in codes], 19)
+    got = dict(zip(keys.tolist(), counts.tolist()))
+    assert got == {k: 2 * v for k, v in want.items()}
+
+    sc2 = ShardedCounter(mesh, k=19, shard_capacity=cap, route_slack=8.0,
+                         flush_batches=1, disable_grow=True)
+    with pytest.raises(RuntimeError, match="overflow"):
+        sc2.add_codes(codes)
+        sc2.flush()
+        sc2.add_codes(codes)
+        sc2.check()

@@ -1,7 +1,7 @@
 """Distributed analysis phase (parallel/analysis.py): comp/gcp run on
 co-partitioned shards with psum merges and shard-routed lookups (P6) must
 be byte-identical to the single-table engines — the tables never leave the
-mesh (VERDICT round-1 item 2/3)."""
+mesh."""
 
 import os
 import random
@@ -205,7 +205,7 @@ def test_routed_halo_profile_parity(inputs, mesh_spec):
 
 
 def test_routed_halo_profile_wide_keys():
-    """Halo + routed lookups for k > 31 (wide 4-word keys) — round-1 gap."""
+    """Halo + routed lookups for k > 31 (wide 4-word keys)."""
     from kat_tpu.core import coverage, wide
 
     k = 41
@@ -235,8 +235,7 @@ def test_routed_halo_profile_wide_keys():
 def test_lookup_skew_single_compile():
     """Pathological query skew (every query owned by ONE shard) must cost
     exactly one compiled routed-lookup program — the qcap is planned
-    exactly host-side, never discovered by recompile-and-retry
-    (VERDICT r2 item 6)."""
+    exactly host-side, never discovered by recompile-and-retry."""
     from kat_tpu.core import kmers as km
 
     seqs = _random_seqs(77, 24)
@@ -285,19 +284,13 @@ def test_lookup_mixed_queries_exact_plan():
 
 
 def test_sharded_lookup_join_in_shard_map():
-    """On real meshes the routed lookup's local probe auto-routes through
-    the sort-merge join (tables.lookup policy + kernels on); exercise
-    exactly that composition — Pallas sort/merge inside shard_map — in
-    interpret mode on the CPU mesh.
+    """The routed lookup's local probe through the sort-merge join
+    (KAT_TPU_JOIN=1) inside shard_map on the CPU mesh.
 
-    Runs in a SUBPROCESS: compiling this program after the ~273 tests
-    that precede it in the quick tier deterministically SEGFAULTS inside
-    XLA:CPU's backend_compile_and_load (faulthandler-captured stack in
-    round 5 — jax/_src/compiler.py:362, reproduced with compile caches
-    disabled AND freshly removed, so it is accumulated in-process
-    LLVM/XLA compiler state, not our kernels or a stale cache; the same
-    compilation succeeds in a fresh process, 44s).  Isolation is the
-    only available mitigation for an upstream compiler bug."""
+    Runs in a SUBPROCESS: compiling this program late in a long test
+    process has crashed inside XLA:CPU's backend_compile_and_load while
+    the same compilation succeeds in a fresh process, so isolation keeps
+    one compiler fault from taking the worker down."""
     import subprocess
     import sys
 
@@ -315,28 +308,21 @@ def test_joinmap_impl(inputs, monkeypatch):
     if not os.environ.get("KAT_TPU_JOINMAP_CHILD"):
         pytest.skip("runs via the subprocess wrapper (XLA:CPU "
                     "compiler-state segfault; see the wrapper docstring)")
-    monkeypatch.setenv("KAT_TPU_KERNEL", "1")
     monkeypatch.setenv("KAT_TPU_JOIN", "1")
-    from kat_tpu.core import counting as _counting
-
-    _counting.kernels_enabled.cache_clear()
-    try:
-        s1, s2 = inputs
-        mesh = make_mesh(8)
-        c = _count_sharded(s1, mesh)
-        t = _count_single(s1)
-        recs = [fastx.Record(f"q{i}", s.encode())
-                for i, s in enumerate(s2)]
-        batch = next(fastx.encode_batches(iter(recs), K,
-                                          target_codes=1 << 11))
-        words, valid = tables.extract(jnp.asarray(batch), K,
-                                      canonical=False)
-        q = tables.canonicalize(words, K)
-        svc = ShardedLookup(c)
-        got = svc.lookup([np.asarray(w) for w in q])
-        want = np.asarray(tables.lookup(t, q))
-        np.testing.assert_array_equal(
-            np.where(np.asarray(valid), got, 0),
-            np.where(np.asarray(valid), want, 0))
-    finally:
-        _counting.kernels_enabled.cache_clear()
+    s1, s2 = inputs
+    mesh = make_mesh(8)
+    c = _count_sharded(s1, mesh)
+    t = _count_single(s1)
+    recs = [fastx.Record(f"q{i}", s.encode())
+            for i, s in enumerate(s2)]
+    batch = next(fastx.encode_batches(iter(recs), K,
+                                      target_codes=1 << 11))
+    words, valid = tables.extract(jnp.asarray(batch), K,
+                                  canonical=False)
+    q = tables.canonicalize(words, K)
+    svc = ShardedLookup(c)
+    got = svc.lookup([np.asarray(w) for w in q])
+    want = np.asarray(tables.lookup(t, q))
+    np.testing.assert_array_equal(
+        np.where(np.asarray(valid), got, 0),
+        np.where(np.asarray(valid), want, 0))

@@ -2,8 +2,7 @@
 (SURVEY §7 hard part (c)): low-complexity poly-A reads and a single
 hot key must (a) recover exactly via the slack/capacity replay
 protocol starting from deliberately tight settings, and (b) report the
-measured shard imbalance so worst-case route_slack behavior is pinned
-(see docs/PERFORMANCE.md)."""
+measured shard imbalance so worst-case route_slack behavior is pinned."""
 
 import random
 

@@ -1,10 +1,10 @@
 """Randomized stress tests for the stateful counting paths.
 
-The LSM counter and the sharded kernel flush are state machines
-(pending batches, deferred overflow replays, run consolidation); this
-fuzz drives them with irregular batch shapes, shape changes mid-stream,
-tiny capacities (forcing growth replays) and random mesh shapes, always
-against the pure-Python oracle.  Seeds are fixed — failures reproduce.
+The streaming counter and the sharded flush are state machines (pending
+batches, deferred overflow replays); this fuzz drives them with
+irregular batch shapes, shape changes mid-stream, tiny capacities
+(forcing growth replays) and random mesh shapes, always against the
+pure-Python oracle.  Seeds are fixed — failures reproduce.
 """
 
 import random
@@ -32,31 +32,25 @@ def _random_batches(seed, n_seqs, k):
 
 
 @pytest.mark.parametrize("seed", [101, 202, 303])
-def test_lsm_torture_interpret(monkeypatch, seed):
+def test_counter_torture(seed):
     """Irregular shapes + tiny capacity (growth replays) + random flush
-    cadence through the LSM kernel path, vs the oracle."""
+    cadence + checked mid-stream reads through the streaming counter, vs
+    the oracle."""
     rng = random.Random(seed)
     k = rng.choice([9, 13, 21])
     seqs, batches = _random_batches(seed, rng.randint(10, 30), k)
 
-    monkeypatch.setenv("KAT_TPU_KERNEL", "1")
-    counting.kernels_enabled.cache_clear()
-    try:
-        sc = counting.CodeStreamingCounter(
-            k, canonical=True,
-            initial_capacity=1 << rng.randint(8, 11),
-            max_capacity=1 << 16,
-            flush_batches=rng.randint(1, 3),
-            lsm_runs=rng.randint(1, 4))
-        for b in batches:
-            sc.add_codes(np.asarray(b))
-            if rng.random() < 0.2:
-                # mid-stream checked reader (settles pending state)
-                _ = sc.current_table()
-        t = sc.finish()
-    finally:
-        monkeypatch.delenv("KAT_TPU_KERNEL")
-        counting.kernels_enabled.cache_clear()
+    sc = counting.CodeStreamingCounter(
+        k, canonical=True,
+        initial_capacity=1 << rng.randint(4, 8),
+        max_capacity=1 << 16,
+        flush_batches=rng.randint(1, 3))
+    for b in batches:
+        sc.add_codes(np.asarray(b))
+        if rng.random() < 0.2:
+            # mid-stream checked reader (settles pending state)
+            _ = sc.current_table()
+    t = sc.finish()
     keys, counts = counting.table_to_numpy(t)
     got = dict(zip(keys.tolist(), counts.tolist()))
     assert got == dict(oracle.count_seqs(seqs, k))
@@ -64,8 +58,7 @@ def test_lsm_torture_interpret(monkeypatch, seed):
 
 @pytest.mark.parametrize("seed", [7, 17])
 def test_sharded_mesh_fuzz(seed):
-    """Random mesh shape x k x slack against the oracle (XLA path —
-    the kernel structure is pinned in test_sharded_kernel.py)."""
+    """Random mesh shape x k x slack against the oracle."""
     rng = random.Random(seed)
     k = rng.choice([11, 13, 19, 27, 33])
     seqs, batches = _random_batches(seed + 1000, rng.randint(16, 40), k)
